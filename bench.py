@@ -1,20 +1,21 @@
 #!/usr/bin/env python3
-"""Benchmark: LR segments matched per second per chip (BASELINE.json metric).
+"""Benchmark: LR segments matched per second on one GPU (the flagship).
 
 Workload: mr=2, bl=16, 25K-barcode whitelist (=> 50K fwd+rc patterns),
 synthetic ~24bp segments with planted barcodes — the reference match_trie
-configuration. Measures the full two-pass device match (min-distance pass +
-tie-extraction pass) via models.matcher.match_segments, end to end excluding
-file I/O.
+configuration. Measures the device match (host prefilter + the fused
+min/ties kernel + tie escalation) via models.matcher.match_segments, end to
+end excluding file I/O, after a warm-up run that compiles every shape.
 
-Prints ONE JSON line:
-  {"metric": ..., "value": N, "unit": "segments/s", "vs_baseline": N}
+Runs on the GPU only (JAX_PLATFORMS=cuda is set before JAX is imported, so
+a machine without one fails). Prints ONE JSON line:
+  {"metric": ..., "value": N, "unit": "segments/s", "vs_baseline": N, ...}
+with the platform, device kind and the nvidia-smi card line.
 
-vs_baseline is against the reference match_trie throughput measured ON THIS
-HOST (see tools/measure_reference.py): single-thread segments/s scaled by the
-reference's declared 32-thread envelope (Snakefile:128-132) — i.e. an
-idealized linear-scaling 32-core CPU reference, a deliberately generous
-baseline. The repo publishes no perf numbers of its own (BASELINE.md).
+vs_baseline is against the reference match_trie throughput measured on a
+CPU host (REF_MEASURED.json, tools/measure_reference.py): single-thread
+segments/s scaled by the reference's declared 32-thread envelope
+(Snakefile:128-132) — an idealized linear-scaling 32-core CPU reference.
 """
 
 from __future__ import annotations
@@ -28,8 +29,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-# Reference match_trie on this host: 20K segments x 25K barcodes, mr=2,
-# threads=1 -> 1267.3s = 15.8 segs/s (tools/measure_reference.py, 2026-08-17).
+# Reference match_trie on a CPU host: 20K segments x 25K barcodes, mr=2,
+# threads=1 -> 1267.3s = 15.8 segs/s (REF_MEASURED.json).
 REF_SEGS_PER_SEC_1T = 15.8
 REF_THREADS = 32  # Snakefile:130 resource envelope (ideal linear scaling)
 
@@ -41,7 +42,7 @@ def make_inputs(n_segs: int, n_barcodes: int = 25_000, seed: int = 0,
     distribution; segments stay uniformly 24bp). ``indels`` (or
     SCTAG_BENCH_INDELS=1) draws each edit uniformly from
     {substitution, deletion, insertion} instead — ragged 22-26bp segments,
-    the harder distribution (recorded alongside the headline in CLAUDE.md).
+    the harder distribution.
     """
     if indels is None:
         indels = os.environ.get("SCTAG_BENCH_INDELS", "0") == "1"
@@ -81,26 +82,15 @@ def make_inputs(n_segs: int, n_barcodes: int = 25_000, seed: int = 0,
 
 
 def main():
-    if "--verify" in sys.argv[1:]:
-        # compiled-TPU parity gate: byte-compare TPU vs CPU stage outputs
-        sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
-        import tpu_parity
-
-        sys.exit(tpu_parity.main([a for a in sys.argv[1:] if a != "--verify"]))
-    # default = sustained scale (8 chunk-multiples): chunk-count quantization
-    # (every device chunk pads to the fixed PASS1_CHUNK kernel shape) and the
-    # prefilter's chunk savings both amortize here, matching the perf log's
-    # 1M sustained rows. A/B at this size 2026-08-20: dist<=1 prefilter +
-    # prep pipeline 130,310 segs/s / dist-0-only 101,027 / prefilter fully
-    # off 65,027 (all recorded in CLAUDE.md; SCTAG_BENCH_INDELS=1 runs the
-    # harder sub/del/ins workload, recorded at 95,568).
+    os.environ["JAX_PLATFORMS"] = "cuda"
+    # sustained scale: 8 chunk-multiples, so chunk-count quantization and the
+    # prefilter's chunk savings both amortize
     n_segs = int(os.environ.get("SCTAG_BENCH_SEGS", 1_048_576))
-    from sctagger_tpu.runtime import configure_jax
+    from sctagger.runtime import configure_jax, device_summary
 
     configure_jax()
-    import jax
-
-    from sctagger_tpu.models.matcher import match_segments
+    from chip_smoke import card_line
+    from sctagger.models.matcher import match_segments
 
     segs, barcodes = make_inputs(n_segs)
 
@@ -114,10 +104,11 @@ def main():
 
     rate = n_segs / dt
     baseline = REF_SEGS_PER_SEC_1T * REF_THREADS
+    dev = device_summary()
     print(
         json.dumps(
             {
-                "metric": "lr_segments_matched_per_sec_per_chip",
+                "metric": "lr_segments_matched_per_sec",
                 "value": round(rate, 1),
                 "unit": "segments/s",
                 "vs_baseline": round(rate / baseline, 2),
@@ -127,79 +118,14 @@ def main():
                     "mr": 2,
                     "wall_s": round(dt, 3),
                     "matched": int(result.rids.size),
-                    "backend": jax.default_backend(),
+                    "platform": dev["platform"],
+                    "device_kind": dev["kind"],
+                    "card": card_line(),
                     "baseline_segs_per_sec": baseline,
-                    "baseline_note": (
-                        "reference match_trie measured on this host at "
-                        f"{REF_SEGS_PER_SEC_1T} segs/s single-thread, scaled "
-                        f"x{REF_THREADS} (ideal linear) for the Snakefile "
-                        "32-thread envelope"
-                    ),
-                    "stages": _stage_rates(),
                 },
             }
         )
     )
-
-
-def _stage_rates():
-    """Per-stage ours-vs-reference rates (VERDICT r1 #3), folded in from
-    BENCH_STAGES.json (ours, tools/bench_stages.py) and REF_MEASURED.json
-    (reference, tools/measure_reference.py) — both measured on this host
-    with identical fixtures and full-CLI-wall protocol."""
-    here = os.path.dirname(os.path.abspath(__file__))
-
-    def _load(name):
-        p = os.path.join(here, name)
-        if os.path.exists(p):
-            with open(p) as f:
-                return json.load(f)
-        return {}
-
-    ours = _load("BENCH_STAGES.json")
-    ref = _load("REF_MEASURED.json")
-    out = {}
-    for s in ("lr", "lr_sustained", "lr_sustained_q20", "sr", "alt",
-              "alt_device", "alt_3m", "alt_device_3m"):
-        if s not in ours:
-            continue
-        e = {
-            "value": ours[s]["value"],
-            "unit": ours[s]["unit"],
-            "wall_s": ours[s]["wall_s"],
-            "backend": ours[s].get("backend"),
-            "measured": ours[s].get("date"),
-        }
-        if "phases_s" in ours[s]:
-            e["phases_s"] = ours[s]["phases_s"]
-        if "d0_resolved_frac" in ours[s]:
-            e["d0_resolved_frac"] = ours[s]["d0_resolved_frac"]
-        for k in ("best_value", "best_note", "variance_note"):
-            if k in ours[s]:
-                e[k] = ours[s][k]
-        # variant rows share their base stage's reference baseline
-        rs = {
-            "alt_device": "alt", "alt_3m": "alt", "alt_device_3m": "alt",
-            "lr_sustained": "lr", "lr_sustained_q20": "lr",
-        }.get(s, s)
-        if rs in ref:
-            if rs == "lr":
-                # stage-1 envelope: 32 threads (Snakefile:84-87), ideal scaling
-                base = ref[rs]["value"] * 32
-                e["baseline"] = f"{base:.0f} reads/s (native-Myers ref x32)"
-            elif s == "sr":
-                # htslib-class speed of light: single-stream BGZF inflate
-                base = ref[rs]["inflate_alns_per_s"]
-                e["baseline"] = (
-                    f"{base:.0f} alns/s (single-stream zlib inflate bound)"
-                )
-            else:
-                # alt stage 2 is single-threaded in the reference
-                base = ref[rs]["value"]
-                e["baseline"] = f"{base:.0f} rows/s (native-AC ref, 1 thread)"
-            e["vs_baseline"] = round(ours[s]["value"] / base, 2)
-        out[s] = e
-    return out
 
 
 if __name__ == "__main__":

@@ -9,7 +9,7 @@ import sys
 
 sys.path.insert(0, __file__.rsplit("/", 1)[0])
 
-from sctagger_tpu.cli import main
+from sctagger.cli import main
 
 if __name__ == "__main__":
     main()

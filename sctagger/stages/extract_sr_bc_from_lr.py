@@ -1,0 +1,190 @@
+"""`extract_sr_bc_from_lr` stage driver — whitelist recovery from LR segments.
+
+Pipeline (reference scTagger.py:792-844): read the 10x whitelist (NOTE the
+reference strips exactly one trailing char per line, `l[:-1]` — reproduced) ->
+exact-match every segment window against fwd+rc of every whitelist barcode ->
+drop ambiguous reads (>1 hit) -> count by abs(index), fwd/rc merged ->
+sort by count desc (ties keep first-increment order) -> cap, chunked
+threshold cutoff -> TSV `barcode \t count` (gzipped when -o given).
+"""
+
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+
+from ..core.cutoff import chunked_cutoff
+from ..core.packing import rev_compl
+from ..io.tsv import open_maybe_gz, open_out
+from ..ops.exact_lookup import build_key_table, host_dict_fallback, probe_segments
+from ..ops.topk_count import count_and_rank_host
+
+
+def run(args) -> None:
+    from ..observability import stage_scope
+
+    with stage_scope("extract_sr_bc_from_lr") as stats:
+        _run(args, stats)
+
+
+def _run(args, stats) -> None:
+    n_hosts = getattr(args, "n_hosts", 1) or 1
+    multi = n_hosts > 1
+
+    infile = open_maybe_gz(args.barcode_whitelist)
+    print(f"Reading whiltelist barcodes from: {args.barcode_whitelist}")
+    barcodes = [l[:-1] for l in infile]
+    infile.close()
+    stats.count("whitelist", len(barcodes))
+
+    print(f"\n=====\nMatching exact barcodes on long-reads: {args.input}")
+    with stats.timer("read_lr_tsv"):
+        if multi:
+            from ..io.sharding import read_tsv_shard
+
+            _, lines = read_tsv_shard(args.input, args.host_id, n_hosts)
+            segments: list[str] = []
+            for l in lines:
+                # Tolerant parse (index, not unpack) to match the shared
+                # native reader used single-host: rows with >4 tab fields
+                # behave the same at any host count (documented divergence
+                # from the reference's strict unpack, ROADMAP.md).
+                c = l.split("\t")
+                if c[2] == "NA":
+                    continue
+                segments.append(c[3])
+        else:
+            from ..io.tsv import read_lr_segments_tsv
+
+            _, _, locs, segs = read_lr_segments_tsv(args.input)
+            keep = [i for i, p in enumerate(locs) if p != "NA"]
+            take = getattr(segs, "take", None)
+            segments = take(keep) if take else [segs[i] for i in keep]
+    stats.count("segments", len(segments))
+
+    try:
+        # rc keys derived numerically inside build_key_table: no rc strings
+        # (was ~13s of per-string Python at the 3M-row 10x whitelist scale)
+        sorted_keys, values = build_key_table(barcodes)
+
+        def _probe(batch):
+            return probe_segments(
+                batch, sorted_keys, values, k=len(barcodes[0])
+            )
+    except ValueError:
+        print("whitelist not uniform ACGT; using host fallback", file=sys.stderr)
+        barcodes_rc = [rev_compl(b) for b in barcodes]
+
+        def _probe(batch):
+            return host_dict_fallback(batch, barcodes, barcodes_rc)
+
+    with stats.timer("probe"):
+        counts_per_seg, single_val = _scan_with_checkpoint(
+            args, segments, _probe
+        )
+
+    matched = counts_per_seg == 1
+    stats.count("matched_segments", int(matched.sum()))
+    vals = np.abs(single_val[matched]).astype(np.uint32)
+    if multi:
+        keys_ranked, counts_ranked = _rank_multi(args, barcodes, vals, n_hosts)
+        if args.host_id != 0:
+            return  # host 0 writes the single small output file
+    else:
+        # host count + rank by (count desc, first-increment asc) — identical
+        # to the reference's insertion-ordered Counter + stable reverse sort
+        # (scTagger.py:826-828). Host, not device: the id vector is small
+        # and its DATA-DEPENDENT length would compile once per run
+        # (ops/topk_count.py module note).
+        keys_ranked, counts_ranked = count_and_rank_host(vals)
+    print(f"\n=====\nFound {len(keys_ranked):,} unique barcodes on long-reads")
+    sorted_bc = [
+        (int(k), int(c)) for k, c in zip(keys_ranked, counts_ranked)
+    ][: args.max_barcode_cnt]
+    sorted_bc = chunked_cutoff(sorted_bc, args.step_size, args.thresh)
+
+    print(f"\n=====\nWriting the top {len(sorted_bc)} barcodes")
+    stats.count("written", len(sorted_bc))
+    with stats.timer("write"):
+        outfile = open_out(args.outfile, force_gzip=True)
+        for bc, c in sorted_bc:
+            outfile.write(f"{barcodes[bc]}\t{c}\n")
+        if outfile is not sys.stdout:
+            outfile.close()
+
+
+def _scan_with_checkpoint(args, segments, probe_fn):
+    """Batch-granular scan cache for the whitelist probe (SCTAG_CHECKPOINT_DIR,
+    like stage 1's scan cache): per-batch (counts, single_val) arrays persist
+    as npz parts, so a killed run resumes at batch granularity with
+    byte-identical output. Disabled for multi-host runs (shard-dependent
+    batch contents would collide on one job key)."""
+    import os
+
+    from ..pipeline.checkpoint import PartStore, job_key
+    from ..utils import batch_iter
+
+    n_hosts = getattr(args, "n_hosts", 1) or 1
+    # batch size defines the part spans, so it keys the store (stale-span
+    # reuse guard; see pipeline/checkpoint.py)
+    from ..utils import progress_bar
+
+    batch = int(os.environ.get("SCTAG_CHECKPOINT_BATCH", 250_000))
+    store = PartStore(
+        "extract_sr_bc_from_lr_scan",
+        job_key(
+            "extract_sr_bc_from_lr_scan",
+            [args.input, args.barcode_whitelist],
+            {"m": args.max_barcode_cnt, "batch": batch},
+        ),
+    )
+    if not store.enabled or n_hosts > 1:
+        return probe_fn(segments)
+    counts_parts, val_parts = [], []
+    bar = progress_bar(total=len(segments), desc="probe", unit="row")
+    for bi, (s, e) in enumerate(batch_iter(len(segments), batch)):
+        if store.has(bi, "npz"):
+            d = store.load_arrays(bi)
+        else:
+            c, v = probe_fn(segments[s:e])
+            d = {"counts": c, "single_val": v}
+            store.save_arrays(bi, **d)
+        counts_parts.append(d["counts"])
+        val_parts.append(d["single_val"])
+        bar.update(e - s)
+    bar.close()
+    if not counts_parts:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    return np.concatenate(counts_parts), np.concatenate(val_parts)
+
+
+def _rank_multi(args, barcodes, vals: np.ndarray, n_hosts: int):
+    """Cross-host count merge preserving the reference's tie order.
+
+    The reference ranks by (count desc, first-occurrence asc) over the global
+    single-stream row order. Shards are contiguous row ranges, so a matched
+    read's global insertion index = (# matched on earlier hosts) + local
+    index; counts psum-merge and first-occurrence indices pmin-merge."""
+    from ..parallel.multihost import make_host_group
+    from ..utils import full_fast
+
+    group = make_host_group(
+        args,
+        "extract_sr_bc_from_lr",
+        [args.input, args.barcode_whitelist],
+        {"t": args.thresh, "s": args.step_size, "m": args.max_barcode_cnt},
+    )
+    per_host = group.allgather_scalar(vals.size)
+    my_off = int(per_host[: args.host_id].sum())
+    B = len(barcodes)
+    cnt = np.bincount(vals, minlength=B).astype(np.int64)
+    first = full_fast(B, np.iinfo(np.int64).max, np.int64)
+    uniq, fidx = np.unique(vals, return_index=True)
+    first[uniq] = my_off + fidx
+    cnt = group.allreduce(cnt, "sum")
+    first = group.allreduce(first, "min")
+    nz = np.flatnonzero(cnt > 0)
+    order = np.lexsort((first[nz], -cnt[nz]))
+    ranked = nz[order]
+    return ranked.astype(np.uint32), cnt[ranked]

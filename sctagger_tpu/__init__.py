@@ -1,24 +1,36 @@
-"""sctagger_tpu — a TPU-native single-cell barcode matching engine.
+"""Former name of the ``sctagger`` package, kept so that existing imports
+and ``python -m`` invocations under it go on working.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of vpc-ccg/scTagger
-(reference: /root/reference/scTagger.py): matching cellular barcodes between
-short-read and long-read single-cell RNA-seq data.
-
-Subcommands (CLI-compatible with the reference, `scTagger.py:20-145`):
-  extract_lr_bc         locate the SR adapter on long reads (edit-distance scan)
-  extract_sr_bc         build an SR barcode whitelist from a Cell Ranger BAM
-  extract_sr_bc_from_lr build the whitelist from LR segments + 10x whitelist
-  match_trie            match LR segments against the whitelist within max-error
-
-Architecture (TPU-first, not a port):
-  core/      2-bit packed sequence arrays, host-side parity-critical algorithms
-  ops/       Pallas/JAX kernels: Myers bit-vector edit distance, exact k-mer
-             lookup, top-k counting
-  models/    composed jittable compute graphs per pipeline stage
-  parallel/  jax.sharding mesh, pjit/shard_map wrappers, collectives
-  io/        FASTQ/TSV/BAM ingestion (C++ BGZF+BAM reader in native/)
-  stages/    the four stage drivers (host orchestration, byte-exact TSV output)
-  pipeline/  Snakemake-equivalent DAG runner with file-based resume
+Importing this name, or any module below it, returns the module of the same
+path under ``sctagger`` (the one module object, never a second copy).
+``python -m`` with this name runs ``sctagger/__main__.py``.
 """
 
-__version__ = "0.1.0"
+import importlib
+import importlib.abc
+import importlib.util
+import sys
+
+import sctagger as _target
+
+_OLD = __name__
+_NEW = _target.__name__
+
+
+class _AliasFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    def find_spec(self, name, path=None, target=None):
+        # __main__ is left to the path finder, which finds sctagger's own
+        # file through the package path below (runpy needs its code object)
+        if name.startswith(_OLD + ".") and name != _OLD + ".__main__":
+            return importlib.util.spec_from_loader(name, self)
+        return None
+
+    def create_module(self, spec):
+        return importlib.import_module(_NEW + spec.name[len(_OLD):])
+
+    def exec_module(self, module):
+        pass
+
+
+sys.meta_path.insert(0, _AliasFinder())
+sys.modules[_OLD] = _target

@@ -11,7 +11,7 @@ Reverse-strand distance-1 starts are checked against edlib_hw_locations
 import numpy as np
 import pytest
 
-from sctagger_tpu.core.packing import STRICT_TABLE, encode_str, rev_compl
+from sctagger.core.packing import STRICT_TABLE, encode_str, rev_compl
 
 from oracle import (
     edlib_hw_locations,
@@ -25,8 +25,8 @@ ADAPTER = "CTACACGACGCTCTTCCGATCT"
 
 
 def _scanner(adapter=ADAPTER):
-    from sctagger_tpu.models.adapter import _D1Scanner
-    from sctagger_tpu.native.build import load
+    from sctagger.models.adapter import _D1Scanner
+    from sctagger.native.build import load
 
     pat = np.stack([
         encode_str(adapter, STRICT_TABLE),
@@ -108,8 +108,8 @@ def test_scan1_end_sets_vs_oracle(adapter):
 def test_scan1_matches_d0_scanner_on_tier0():
     """The d1 scanner's distance-0 tier must agree with the proven d0-only
     scanner (same counts, same end slots) on a mixed fixture."""
-    from sctagger_tpu.models.adapter import _D0Scanner
-    from sctagger_tpu.native.build import load
+    from sctagger.models.adapter import _D0Scanner
+    from sctagger.native.build import load
 
     rng = np.random.default_rng(5)
     reads = _edge_fixture(rng, ADAPTER)

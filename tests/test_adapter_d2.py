@@ -9,15 +9,15 @@ the whole tier is output-invisible at the stream level.
 import numpy as np
 import pytest
 
-from sctagger_tpu.core.packing import STRICT_TABLE, encode_str, rev_compl
+from sctagger.core.packing import STRICT_TABLE, encode_str, rev_compl
 
 from oracle import edlib_hw_locations, hw_score_columns, mutate, random_dna
 from test_stream_scan import ADAPTER, _flatten, _gen_reads, make_sb
 
 
 def _scanner(adapter=ADAPTER):
-    from sctagger_tpu.models.adapter import _D2Scanner
-    from sctagger_tpu.native.build import load
+    from sctagger.models.adapter import _D2Scanner
+    from sctagger.native.build import load
 
     pat = np.stack([
         encode_str(adapter, STRICT_TABLE),
@@ -138,8 +138,8 @@ def test_scan2_end_sets_vs_oracle(adapter):
 def test_stream_d2_prefilter_parity(monkeypatch):
     """The dist<=2 tier is output-invisible: d2 == d1 == d0-only == off on
     a fixture rich in 0/1/2-edit adapters both strands + 2/2 ties."""
-    from sctagger_tpu.models.adapter import scan_adapters_stream
-    from sctagger_tpu.utils.misc import PROF
+    from sctagger.models.adapter import scan_adapters_stream
+    from sctagger.utils.misc import PROF
 
     rng = np.random.default_rng(61)
     reads = _gen_reads(rng, 50)  # plants 0-2 edit adapters
@@ -150,20 +150,20 @@ def test_stream_d2_prefilter_parity(monkeypatch):
     monkeypatch.setenv("SCTAG_ADAPTER_D1", "1")
     monkeypatch.setenv("SCTAG_ADAPTER_D2", "1")
     PROF.pop("scan.d2_resolved_reads", None)
-    _, _, d2 = scan_adapters_stream(batches(), ADAPTER, force_kernel=True)
+    _, _, d2 = scan_adapters_stream(batches(), ADAPTER)
     assert PROF.get("scan.d2_resolved_reads", 0) > 0
     monkeypatch.setenv("SCTAG_ADAPTER_D2", "0")
-    _, _, d1 = scan_adapters_stream(batches(), ADAPTER, force_kernel=True)
+    _, _, d1 = scan_adapters_stream(batches(), ADAPTER)
     monkeypatch.setenv("SCTAG_ADAPTER_D0", "0")
-    _, _, off = scan_adapters_stream(batches(), ADAPTER, force_kernel=True)
+    _, _, off = scan_adapters_stream(batches(), ADAPTER)
     assert _flatten(d2) == _flatten(off)
     assert _flatten(d1) == _flatten(off)
 
 
 def test_scan2_agrees_with_scan1_on_lower_tiers():
     """Tier-0/1 counts and slots must equal the proven d1 scanner's."""
-    from sctagger_tpu.models.adapter import _D1Scanner
-    from sctagger_tpu.native.build import load
+    from sctagger.models.adapter import _D1Scanner
+    from sctagger.native.build import load
     from test_adapter_d1 import _edge_fixture
 
     rng = np.random.default_rng(8)

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from sctagger_tpu.io.bam import extract_cb_counts
+from sctagger.io.bam import extract_cb_counts
 
 from bamgen import write_bam
 
@@ -117,7 +117,7 @@ def test_extract_cb_range_shard_chain(tmp_path):
     global first-appearance order)."""
     import numpy as np
 
-    from sctagger_tpu.io.bam import (
+    from sctagger.io.bam import (
         bam_file_size,
         extract_cb_counts,
         extract_cb_counts_range,
@@ -179,7 +179,7 @@ def test_extract_cb_range_self_sync(tmp_path):
     at varied offsets inside records."""
     import numpy as np
 
-    from sctagger_tpu.io.bam import bam_file_size, extract_cb_counts_range
+    from sctagger.io.bam import bam_file_size, extract_cb_counts_range
 
     from bamgen import write_bam
     from oracle import random_dna
@@ -226,7 +226,7 @@ def test_bam_crc_mismatch_detected(tmp_path):
     import numpy as np
     import pytest
 
-    from sctagger_tpu.io.bam import extract_cb_counts
+    from sctagger.io.bam import extract_cb_counts
 
     from bamgen import write_bam
     from oracle import random_dna

@@ -5,9 +5,9 @@ import gzip
 import numpy as np
 import pytest
 
-import sctagger_tpu.models.adapter as adapter_mod
-import sctagger_tpu.stages.match_trie as mt_mod
-from sctagger_tpu.cli import main as cli_main
+import sctagger.models.adapter as adapter_mod
+import sctagger.stages.match_trie as mt_mod
+from sctagger.cli import main as cli_main
 
 from oracle import mutate, random_dna
 
@@ -96,7 +96,7 @@ def test_match_trie_checkpoint_key_invalidation(tmp_path, monkeypatch):
 def test_match_trie_checkpoint_batch_change_invalidation(tmp_path, monkeypatch):
     """Changing SCTAG_CHECKPOINT_BATCH re-keys the part store: a resume with
     a different batch size must never reuse parts whose row spans no longer
-    match the new span geometry (ADVICE r4 high)."""
+    match the new span geometry."""
     rng = np.random.default_rng(95)
     sr, lr = _match_inputs(tmp_path, rng, n_reads=48)
     ckpt = tmp_path / "ckpt"
@@ -139,7 +139,7 @@ def test_extract_lr_bc_checkpoint_resume(tmp_path, monkeypatch):
 
     calls = []
     real = adapter_mod.scan_adapters
-    import sctagger_tpu.stages.extract_lr_bc as s1_mod
+    import sctagger.stages.extract_lr_bc as s1_mod
 
     monkeypatch.setattr(
         s1_mod, "scan_adapters",
@@ -164,9 +164,9 @@ def test_extract_lr_bc_checkpoint_resume(tmp_path, monkeypatch):
 
 def test_extract_sr_bc_from_lr_checkpoint_resume(tmp_path, monkeypatch):
     """Alt-stage-2 probe scan resumes at batch granularity, including a
-    kill mid-scan (VERDICT r1 #8)."""
-    import sctagger_tpu.ops.exact_lookup as xl_mod
-    import sctagger_tpu.stages.extract_sr_bc_from_lr as alt_mod
+    kill mid-scan."""
+    import sctagger.ops.exact_lookup as xl_mod
+    import sctagger.stages.extract_sr_bc_from_lr as alt_mod
 
     rng = np.random.default_rng(93)
     bcs = sorted({random_dna(rng, 16) for _ in range(25)})
@@ -225,8 +225,8 @@ def test_extract_sr_bc_from_lr_checkpoint_resume(tmp_path, monkeypatch):
 
 def test_extract_sr_bc_checkpoint_resume(tmp_path, monkeypatch):
     """Stage-2 BAM scan resumes at compressed-byte-range granularity,
-    including a kill mid-scan (VERDICT r2 #5)."""
-    import sctagger_tpu.stages.extract_sr_bc as s2_mod
+    including a kill mid-scan."""
+    import sctagger.stages.extract_sr_bc as s2_mod
     from test_stage2_golden import _make_bam
 
     rng = np.random.default_rng(94)

@@ -4,7 +4,7 @@ import gzip
 
 import numpy as np
 
-from sctagger_tpu.cli import main as cli_main
+from sctagger.cli import main as cli_main
 
 from oracle import mutate, random_dna
 from refharness import run_reference
@@ -15,7 +15,7 @@ def test_custom_short_adapter_golden(tmp_path):
     (Peq width, SHW window 2m, histogram)."""
     rng = np.random.default_rng(70)
     adapter = "ACGTTGCAGT"
-    from sctagger_tpu.core import rev_compl
+    from sctagger.core import rev_compl
 
     lines = []
     for i in range(80):
@@ -76,7 +76,7 @@ def test_match_trie_no_matches(tmp_path):
 
 
 def test_plots_smoke(tmp_path):
-    from sctagger_tpu.plots import (
+    from sctagger.plots import (
         plot_extract_lr_bc,
         plot_match_trie,
         plot_sr_bc_coverage,
@@ -152,7 +152,7 @@ def test_hash_probe_matches_sorted_probe():
     import jax.numpy as jnp
     import numpy as np
 
-    from sctagger_tpu.ops.exact_lookup import (
+    from sctagger.ops.exact_lookup import (
         _hash_probe,
         _probe,
         build_hash_table,
@@ -193,7 +193,7 @@ def test_hash_table_empty_and_tiny():
     import jax.numpy as jnp
     import numpy as np
 
-    from sctagger_tpu.ops.exact_lookup import _hash_probe, build_hash_table
+    from sctagger.ops.exact_lookup import _hash_probe, build_hash_table
 
     tk, tv = build_hash_table(np.empty(0, np.uint32), np.empty(0, np.int64))
     h, v = _hash_probe(
@@ -216,12 +216,12 @@ def test_hash_table_empty_and_tiny():
 
 
 def test_sortjoin_probe_matches_sorted_probe():
-    """Sort-join (TPU path) vs binary search, incl. queries below/above the
+    """Sort-join (opt-in probe) vs binary search, incl. queries below/above the
     whole table range and 2-D query shapes."""
     import jax.numpy as jnp
     import numpy as np
 
-    from sctagger_tpu.ops.exact_lookup import _probe, _sortjoin_probe
+    from sctagger.ops.exact_lookup import _probe, _sortjoin_probe
 
     rng = np.random.default_rng(21)
     keys = np.unique(
@@ -253,7 +253,7 @@ def test_sortjoin_probe_empty_table():
     import jax.numpy as jnp
     import numpy as np
 
-    from sctagger_tpu.ops.exact_lookup import _sortjoin_probe
+    from sctagger.ops.exact_lookup import _sortjoin_probe
 
     h, v = _sortjoin_probe(
         jnp.asarray(np.empty(0, np.uint32)),
@@ -268,8 +268,8 @@ def test_tie_overflow_single_escalation():
     """A tie set > 2*TOPK_INIT pins the (single) escalation in _collect_ties:
     40 duplicate barcodes tie the same segment at d=0, overflowing both the
     kernel/initial top-k (TIES_K=8, TOPK_INIT=16) so k jumps straight to
-    max(cnt)=40 in one pass (VERDICT r2 #6)."""
-    from sctagger_tpu.models.matcher import TOPK_INIT, match_segments
+    max(cnt)=40 in one pass."""
+    from sctagger.models.matcher import TOPK_INIT, match_segments
 
     bc = "ACGTTGCAGTCAGTCA"  # 16 bp, not self-revcomp
     n_dup = 2 * TOPK_INIT + 8

@@ -4,9 +4,9 @@ match_segments parity with the prefilter on vs off."""
 import numpy as np
 import pytest
 
-from sctagger_tpu.core import LENIENT_TABLE, encode_seqs, rev_compl
-from sctagger_tpu.models.matcher import _build_patterns, match_segments
-from sctagger_tpu.ops.exact_prefilter import exact_tie_probe
+from sctagger.core import LENIENT_TABLE, encode_seqs, rev_compl
+from sctagger.models.matcher import _build_patterns, match_segments
+from sctagger.ops.exact_prefilter import exact_tie_probe
 
 from oracle import random_dna
 
@@ -103,19 +103,19 @@ def test_match_segments_prefilter_parity(monkeypatch):
     # the prefilter really resolved something: some read has dist 0
     assert 0 in on[1]
     # and overflow tie sets exist (>TIES_K from the duplicated barcodes)
-    from sctagger_tpu.ops.match_pallas import TIES_K
+    from sctagger.ops.match_pallas import TIES_K
 
     assert max(on[2]) > TIES_K
 
 
 def test_match_segments_streaming_kernel_path(monkeypatch):
-    """The TPU-path streaming dispatcher (per-slice probe, survivor
+    """The kernel-path streaming dispatcher (per-slice probe, survivor
     repacking across slice boundaries, partial flush per bucket) in pallas
-    interpret mode == the jnp fallback path, with the prefilter on and off.
+    interpret mode == the plain jnp path, with the prefilter on and off.
 
     PASS1_CHUNK is shrunk to one kernel block so several slices stream
     through the carry buffer."""
-    import sctagger_tpu.models.matcher as matcher
+    import sctagger.models.matcher as matcher
 
     monkeypatch.setattr(matcher, "PASS1_CHUNK", 1024)
     rng = np.random.default_rng(23)
@@ -160,7 +160,7 @@ def test_match_segments_carry_reprobe_parity(monkeypatch):
     output-invisible: with the neighborhood index pre-built (nb_ready()
     guaranteed True at dispatch time, so the re-probe branch definitely
     runs on slice 0's survivors) the result equals the jnp fallback."""
-    import sctagger_tpu.models.matcher as matcher
+    import sctagger.models.matcher as matcher
 
     monkeypatch.setattr(matcher, "PASS1_CHUNK", 1024)
     rng = np.random.default_rng(77)
@@ -201,7 +201,7 @@ def test_neighborhood_probe_vs_oracle(bl):
     exact min (0/1) and exact tie set; reads with min >= 2 absent."""
     from oracle import hw_best
 
-    from sctagger_tpu.ops.exact_prefilter import NeighborhoodIndex
+    from sctagger.ops.exact_prefilter import NeighborhoodIndex
 
     rng = np.random.default_rng(bl)
     pats = [random_dna(rng, bl) for _ in range(25)]
@@ -302,7 +302,7 @@ def test_match_segments_d1_parity(monkeypatch):
     assert d1_on == d0_only
     assert d1_on == off
     assert 1 in d1_on[1]  # dist-1 reads really present
-    from sctagger_tpu.ops.match_pallas import TIES_K
+    from sctagger.ops.match_pallas import TIES_K
 
     # some dist-1 read overflowed the tie slots
     d1_rows = [i for i, d in enumerate(d1_on[1]) if d == 1]
@@ -344,9 +344,9 @@ def test_match_context_batched_parity(monkeypatch):
     neighborhood index, probe_first on later batches) == one-shot call —
     including a batch whose length distribution differs from the global fit
     (all-long reads) and the streaming kernel path."""
-    import sctagger_tpu.models.matcher as matcher
-    from sctagger_tpu.core.packing import seq_lengths
-    from sctagger_tpu.models.matcher import MatchContext, fit_buckets
+    import sctagger.models.matcher as matcher
+    from sctagger.core.packing import seq_lengths
+    from sctagger.models.matcher import MatchContext, fit_buckets
 
     monkeypatch.setenv("SCTAG_EXACT_PREFILTER", "1")
     monkeypatch.setenv("SCTAG_PREFILTER_D1", "1")
@@ -393,18 +393,17 @@ def test_match_context_batched_parity(monkeypatch):
     assert ctx._nb_thread is not None
 
 
-@pytest.mark.parametrize("dyn_env", ["1", "auto"])
-def test_match_segments_dynls_ragged(monkeypatch, dyn_env):
-    """Ragged buckets on the single-device kernel path auto-select the
-    dynamic-sweep-bound kernel (SCTAG_MATCH_DYNLS auto rule) with output
-    identical to the jnp fallback; '1' forces it on every bucket."""
-    import sctagger_tpu.models.matcher as matcher
-    import sctagger_tpu.parallel.mesh as mesh_mod
+@pytest.mark.parametrize("prefilter", ["1", "0"])
+def test_match_segments_dynls_ragged(monkeypatch, prefilter):
+    """Ragged buckets on the single-device kernel path (the kernel's
+    per-tile length bound cuts the sweep of short tiles) give output
+    identical to the plain jnp path, with the host prefilter on and off."""
+    import sctagger.models.matcher as matcher
+    import sctagger.parallel.mesh as mesh_mod
 
     monkeypatch.setattr(matcher, "PASS1_CHUNK", 1024)
     monkeypatch.setattr(mesh_mod, "local_mesh", lambda *a, **k: None)
-    monkeypatch.setenv("SCTAG_MATCH_DYNLS", dyn_env)
-    monkeypatch.setenv("SCTAG_EXACT_PREFILTER", "1")
+    monkeypatch.setenv("SCTAG_EXACT_PREFILTER", prefilter)
     rng = np.random.default_rng(41)
     base = [random_dna(rng, 16) for _ in range(14)]
     segs = []
@@ -432,10 +431,7 @@ def test_match_segments_dynls_ragged(monkeypatch, dyn_env):
             [r.ties_of(i).tolist() for i in range(r.rids.size)],
         )
 
-    got = run(True)
-    monkeypatch.setenv("SCTAG_MATCH_DYNLS", "0")
-    ref = run(False)
-    assert got == ref
+    assert run(True) == run(False)
 
 
 def test_match_segments_prefilter_all_exact(monkeypatch):

@@ -11,7 +11,7 @@ import gzip
 import numpy as np
 import pytest
 
-from sctagger_tpu.core.packing import (
+from sctagger.core.packing import (
     CODE_PAD,
     LENIENT_TABLE,
     STRICT_TABLE,
@@ -19,7 +19,7 @@ from sctagger_tpu.core.packing import (
     encode_seqs,
     seq_lengths,
 )
-from sctagger_tpu.io.fastq import SeqBuffer, read_fastqs, read_fastqs_py
+from sctagger.io.fastq import SeqBuffer, read_fastqs, read_fastqs_py
 
 from oracle import random_dna
 

@@ -1,65 +1,37 @@
-"""Pallas match kernels vs the jnp scan implementation (interpret mode on CPU)."""
+"""Stage-3 Pallas kernel (Triton route, interpret mode on the CPU) vs the
+plain jnp sweep, the brute-force DP oracle and the C++ oracle."""
 
-import functools
-import os
+import pathlib
+import sys
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from sctagger_tpu.core import LENIENT_TABLE, encode_seqs
-from sctagger_tpu.ops import build_peq_multi, match_block_min
-from sctagger_tpu.ops.match_pallas import (
-    _match_best_kernel,
-    _match_min_kernel,
-    prep_peq_cols,
+import jax.numpy as jnp
+
+from sctagger.core import LENIENT_TABLE, encode_seqs, rev_compl
+from sctagger.ops import build_peq_multi, match_block_min
+from sctagger.ops.match_pallas import (
+    BIG,
+    DEF_BP,
+    DEF_BR,
+    TIES_K,
+    match_full,
+    prep_peq_rows,
     prep_segs_T,
+    tile_maxlens,
 )
 
-from oracle import mutate, random_dna
-
-# interpret mode in the default CPU test run; COMPILED on real hardware when
-# the TPU suite runs these files (tools/tpu_suite.py, SCTAG_TEST_TPU=1).
-# The w16 test is the exception: packed-i16 compares never compile on v5e
-# Mosaic (ROADMAP.md), so it stays in interpret mode everywhere.
-INTERP = not bool(os.environ.get("SCTAG_TEST_TPU"))
+from oracle import hw_best, mutate, random_dna
 
 
-def _pallas_min_interp(seg_T, peq_pm, m, br, bp):
-    ls, r = seg_T.shape
-    p = peq_pm.shape[0]
-    return pl.pallas_call(
-        functools.partial(_match_min_kernel, m=m, ls=ls),
-        grid=(r // br, p // bp),
-        in_specs=[
-            pl.BlockSpec((ls, br), lambda i, j: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bp, 8), lambda i, j: (j, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, br), lambda i, j: (0, i), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((1, r), jnp.int32),
-        scratch_shapes=[pltpu.VMEM((ls, br), jnp.int32)],
-        interpret=INTERP,
-    )(seg_T, peq_pm)
-
-
-def _pallas_best_interp(seg_T, peq_pm, m, br, bp):
-    ls, r = seg_T.shape
-    p = peq_pm.shape[0]
-    return pl.pallas_call(
-        functools.partial(_match_best_kernel, m=m, ls=ls),
-        grid=(r // br, p // bp),
-        in_specs=[
-            pl.BlockSpec((ls, br), lambda i, j: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bp, 8), lambda i, j: (j, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((bp, br), lambda i, j: (j, i), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((p, r), jnp.int8),
-        scratch_shapes=[pltpu.VMEM((ls, br), jnp.int32)],
-        interpret=INTERP,
-    )(seg_T, peq_pm)
+def _run_kernel(seg_codes, lens, peq, m, ls):
+    seg_T = prep_segs_T(seg_codes, ls=ls)
+    ml = tile_maxlens(np.asarray(lens), seg_T.shape[1])
+    return np.asarray(
+        match_full(jnp.asarray(seg_T), jnp.asarray(prep_peq_rows(peq)),
+                   jnp.asarray(ml), m, interpret=True)
+    )
 
 
 @pytest.fixture(scope="module")
@@ -74,91 +46,27 @@ def small_problem():
             bc = barcodes[rng.integers(len(barcodes))]
             s = s[: n // 2] + mutate(rng, bc, int(rng.integers(0, 3))) + s[n // 2 :]
         segs.append(s)
-    seg_codes, _ = encode_seqs(segs, pad_to=64, table=LENIENT_TABLE)
+    seg_codes, lens = encode_seqs(segs, pad_to=64, table=LENIENT_TABLE)
     peq = build_peq_multi(encode_seqs(barcodes, pad_to=16, table=LENIENT_TABLE)[0])
-    return segs, barcodes, seg_codes, peq
+    return segs, barcodes, seg_codes, lens, peq
 
 
 def test_pallas_min_matches_jnp(small_problem):
-    segs, barcodes, seg_codes, peq = small_problem
-    br, bp = 128, 8
-    seg_T = prep_segs_T(seg_codes, ls=64, br=br)
-    peq_pm = prep_peq_cols(peq, bp=bp)
-    got = np.asarray(_pallas_min_interp(seg_T, peq_pm, 16, br, bp))[0]
-    ref = np.asarray(match_block_min(seg_T[:, : len(segs)], jnp.asarray(peq), 16))
+    segs, barcodes, seg_codes, lens, peq = small_problem
+    got = _run_kernel(seg_codes, lens, peq, 16, 64)[0]
+    ref = np.asarray(
+        match_block_min(jnp.asarray(seg_codes.T.astype(np.int32)),
+                        jnp.asarray(peq), 16)
+    )
     np.testing.assert_array_equal(got[: len(segs)], ref)
 
 
-def test_pallas_ties_kernel(small_problem):
-    from sctagger_tpu.ops.match_pallas import TIES_K, _match_ties_kernel
-    from sctagger_tpu.ops import match_block_min
-
-    segs, barcodes, seg_codes, peq = small_problem
-    br, bp = 128, 8
-    seg_T = prep_segs_T(seg_codes, ls=64, br=br)
-    peq_pm = prep_peq_cols(peq, bp=bp)
-    r = seg_T.shape[1]
-    p = peq_pm.shape[0]
-    mins = np.asarray(
-        match_block_min(seg_T[:, : len(segs)].astype(np.int32), jnp.asarray(peq), 16)
-    )
-    target = np.zeros(r, np.int32)
-    target[: len(segs)] = mins
-    out = pl.pallas_call(
-        functools.partial(_match_ties_kernel, m=16, ls=64),
-        grid=(r // br, p // bp),
-        in_specs=[
-            pl.BlockSpec((64, br), lambda i, j: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bp, 8), lambda i, j: (j, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, br), lambda i, j: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (TIES_K + 1, br), lambda i, j: (0, i), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((TIES_K + 1, r), jnp.int32),
-        scratch_shapes=[pltpu.VMEM((64, br), jnp.int32)],
-        interpret=INTERP,
-    )(jnp.asarray(seg_T), jnp.asarray(peq_pm), jnp.asarray(target.reshape(1, r)))
-    out = np.asarray(out)[:, : len(segs)]
-
-    # oracle: full best matrix via jnp
-    from sctagger_tpu.models.matcher import _best_matrix_jnp_t
-
-    best = np.asarray(_best_matrix_jnp_t(seg_codes, np.asarray(peq), 16))
-    for rr in range(len(segs)):
-        hits = np.flatnonzero(best[: len(barcodes), rr] == mins[rr])
-        assert out[0, rr] == len(hits), rr
-        k = min(TIES_K, len(hits))
-        np.testing.assert_array_equal(out[1 : 1 + k, rr], hits[:k])
-
-
 def test_pallas_full_kernel(small_problem):
-    """Single-sweep kernel: min + running-min tie collection."""
-    from sctagger_tpu.ops.match_pallas import TIES_K, _match_full_kernel
-    from sctagger_tpu.models.matcher import _best_matrix_jnp_t
+    """Single sweep: min + running-min tie collection."""
+    from sctagger.models.matcher import _best_matrix_jnp_t
 
-    segs, barcodes, seg_codes, peq = small_problem
-    br, bp = 128, 8
-    seg_T = prep_segs_T(seg_codes, ls=64, br=br)
-    peq_pm = prep_peq_cols(peq, bp=bp)
-    r = seg_T.shape[1]
-    p = peq_pm.shape[0]
-    out = pl.pallas_call(
-        functools.partial(_match_full_kernel, m=16, ls=64),
-        grid=(r // br, p // bp),
-        in_specs=[
-            pl.BlockSpec((64, br), lambda i, j: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bp, 8), lambda i, j: (j, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (TIES_K + 2, br), lambda i, j: (0, i), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((TIES_K + 2, r), jnp.int32),
-        scratch_shapes=[pltpu.VMEM((64, br), jnp.int32)],
-        interpret=INTERP,
-    )(jnp.asarray(seg_T), jnp.asarray(peq_pm))
-    out = np.asarray(out)[:, : len(segs)]
-
+    segs, barcodes, seg_codes, lens, peq = small_problem
+    out = _run_kernel(seg_codes, lens, peq, 16, 64)[:, : len(segs)]
     best = np.asarray(_best_matrix_jnp_t(seg_codes, np.asarray(peq), 16))
     for rr in range(len(segs)):
         col = best[: len(barcodes), rr]
@@ -168,60 +76,12 @@ def test_pallas_full_kernel(small_problem):
         assert out[1, rr] == len(hits), rr
         k = min(TIES_K, len(hits))
         np.testing.assert_array_equal(out[2 : 2 + k, rr], hits[:k])
+        assert (out[2 + k :, rr] == BIG).all()
 
 
-def test_pallas_full_kernel_w16(small_problem):
-    """int16-word DP (m=16 exactly fills the halfword) == int32-word DP."""
-    from sctagger_tpu.ops.match_pallas import TIES_K, _match_full_kernel
-
-    segs, barcodes, seg_codes, peq = small_problem
-    br, bp = 128, 8
-    seg_T = prep_segs_T(seg_codes, ls=64, br=br)
-    peq_pm = prep_peq_cols(peq, bp=bp)
-    r = seg_T.shape[1]
-    p = peq_pm.shape[0]
-
-    def run(w16):
-        return np.asarray(
-            pl.pallas_call(
-                functools.partial(_match_full_kernel, m=16, ls=64, w16=w16),
-                grid=(r // br, p // bp),
-                in_specs=[
-                    pl.BlockSpec(
-                        (64, br), lambda i, j: (0, i), memory_space=pltpu.VMEM
-                    ),
-                    pl.BlockSpec(
-                        (bp, 8), lambda i, j: (j, 0), memory_space=pltpu.VMEM
-                    ),
-                ],
-                out_specs=pl.BlockSpec(
-                    (TIES_K + 2, br), lambda i, j: (0, i),
-                    memory_space=pltpu.VMEM,
-                ),
-                out_shape=jax.ShapeDtypeStruct((TIES_K + 2, r), jnp.int32),
-                scratch_shapes=[pltpu.VMEM((64, br), jnp.int32)],
-                interpret=True,  # w16 never compiles on v5e Mosaic
-            )(jnp.asarray(seg_T), jnp.asarray(peq_pm))
-        )[:, : len(segs)]
-
-    np.testing.assert_array_equal(run(True), run(False))
-
-
-def test_pallas_best_matches_jnp(small_problem):
-    segs, barcodes, seg_codes, peq = small_problem
-    br, bp = 128, 8
-    seg_T = prep_segs_T(seg_codes, ls=64, br=br)
-    peq_pm = prep_peq_cols(peq, bp=bp)
-    best = np.asarray(_pallas_best_interp(seg_T, peq_pm, 16, br, bp))
-    ref_min = np.asarray(match_block_min(seg_T[:, : len(segs)], jnp.asarray(peq), 16))
-    got_min = best[: len(barcodes), : len(segs)].min(axis=0)
-    np.testing.assert_array_equal(got_min, ref_min)
-
-
-def test_pallas_min_bl32_single_word(small_problem=None):
+def test_pallas_min_bl32_single_word():
     """Regression: bl=32 barcodes stay on the single-word path (high_bit(32)
-    wraps to the int32 sign bit) — _wrapped_const must not overflow numpy 2's
-    unsigned constructor at trace time (ADVICE r1)."""
+    wraps to the int32 sign bit)."""
     rng = np.random.default_rng(32)
     barcodes = [random_dna(rng, 32) for _ in range(8)]
     segs = []
@@ -232,88 +92,130 @@ def test_pallas_min_bl32_single_word(small_problem=None):
             bc = barcodes[rng.integers(len(barcodes))]
             s = s[: n // 2] + mutate(rng, bc, int(rng.integers(0, 4))) + s[n // 2 :]
         segs.append(s)
-    seg_codes, _ = encode_seqs(segs, pad_to=64, table=LENIENT_TABLE)
+    seg_codes, lens = encode_seqs(segs, pad_to=64, table=LENIENT_TABLE)
     peq = build_peq_multi(encode_seqs(barcodes, pad_to=32, table=LENIENT_TABLE)[0])
-    br, bp = 128, 8
-    seg_T = prep_segs_T(seg_codes, ls=64, br=br)
-    peq_pm = prep_peq_cols(peq, bp=bp)
-    got = np.asarray(_pallas_min_interp(seg_T, peq_pm, 32, br, bp))[0]
-    ref = np.asarray(match_block_min(seg_T[:, : len(segs)], jnp.asarray(peq), 32))
-    np.testing.assert_array_equal(got[: len(segs)], ref)
-    # And against the brute-force DP oracle, independent of the Myers code.
-    from oracle import hw_best
-
+    got = _run_kernel(seg_codes, lens, peq, 32, 64)[0][: len(segs)]
+    ref = np.asarray(
+        match_block_min(jnp.asarray(seg_codes.T.astype(np.int32)),
+                        jnp.asarray(peq), 32)
+    )
+    np.testing.assert_array_equal(got, ref)
+    # and against the brute-force DP oracle, independent of the Myers code
     want = np.array(
         [min(hw_best(bc, s) for bc in barcodes) for s in segs], np.int32
     )
     np.testing.assert_array_equal(np.minimum(ref, 32), np.minimum(want, 32))
 
 
-def test_w16_guarded_on_tpu(monkeypatch):
-    """match_full_tpu(w16=True) must refuse to reach Mosaic on real TPU
-    hardware (the int16 path has never compiled on v5e; ROADMAP.md) instead
-    of launching an unbounded remote compile."""
-    import sctagger_tpu.ops.match_pallas as mp
-
-    seg_T = jnp.asarray(np.full((8, 1024), 4, np.int8))
-    peq_pm = jnp.asarray(np.zeros((256, 8), np.int32))
-    monkeypatch.setattr(mp.jax, "default_backend", lambda: "tpu")
-    with pytest.raises(NotImplementedError, match="w16"):
-        mp.match_full_tpu(seg_T, peq_pm, 16, w16=True, interpret=False)
-
-
 def test_match_full_variants_parity():
-    """hb (high-bit score accumulation) and dynls (per-block dynamic sweep
-    bound) are bit-identical to the base fused kernel (interpret mode)."""
-    import jax.numpy as jnp
-
-    from sctagger_tpu.core.packing import LENIENT_TABLE, encode_seqs
-    from sctagger_tpu.ops.match_pallas import (
-        match_full_dynls_tpu,
-        match_full_tpu,
-        prep_peq_cols,
-        prep_segs_T,
-    )
-    from sctagger_tpu.ops.myers import build_peq_multi
-
+    """The per-tile length bound (maxlens) is exact: a tight bound on
+    length-sorted ragged segments == sweeping every tile to the padded
+    length."""
     rng = np.random.default_rng(17)
-    bl, br, bp = 16, 128, 8
+    bl = 16
     bcs = ["".join(rng.choice(list("ACGT"), size=bl)) for _ in range(12)]
     pats = []
     for b in bcs:
-        from sctagger_tpu.core import rev_compl
-
         pats.append(rev_compl(b))
         pats.append(b)
     peq = build_peq_multi(encode_seqs(pats, pad_to=bl, table=LENIENT_TABLE)[0])
-    peq_pm = jnp.asarray(prep_peq_cols(peq, bp=bp))
-    # ragged segments (some shorter than the pad) exercise the dynls bound
     segs = []
-    for i in range(2 * br - 7):
+    for i in range(7 * DEF_BR - 5):
         s = "".join(rng.choice(list("ACGT"), size=int(rng.integers(8, 28))))
         if rng.random() < 0.6:
             s = s[:4] + bcs[int(rng.integers(len(bcs)))] + s[4:]
         segs.append(s)
+    segs.sort(key=len)
     ls = 48
     codes, lens = encode_seqs(segs, pad_to=ls, table=LENIENT_TABLE)
-    seg_T = jnp.asarray(prep_segs_T(codes, ls=ls, br=br))
+    seg_T = jnp.asarray(prep_segs_T(codes, ls=ls))
     rp = seg_T.shape[1]
+    peq_rows = jnp.asarray(prep_peq_rows(peq))
+    tight = tile_maxlens(lens, rp)
+    assert tight.min() < ls  # the bound really cuts the sweep
+    got = np.asarray(match_full(seg_T, peq_rows, jnp.asarray(tight), bl,
+                                interpret=True))
+    full = np.asarray(match_full(seg_T, peq_rows,
+                                 jnp.full(rp // DEF_BR, ls, jnp.int32), bl,
+                                 interpret=True))
+    np.testing.assert_array_equal(got, full)
 
-    base = np.asarray(
-        match_full_tpu(seg_T, peq_pm, bl, br=br, bp=bp, interpret=INTERP)
-    )
-    hb = np.asarray(
-        match_full_tpu(seg_T, peq_pm, bl, br=br, bp=bp, hb=True, interpret=INTERP)
-    )
-    np.testing.assert_array_equal(hb, base)
 
-    ml = np.zeros((1, rp // br), np.int32)
-    for b in range(rp // br):
-        blk = lens[b * br : (b + 1) * br]
-        ml[0, b] = int(blk.max()) if blk.size else 0
-    dyn = np.asarray(
-        match_full_dynls_tpu(
-            seg_T, peq_pm, jnp.asarray(ml), bl, br=br, bp=bp, interpret=INTERP
-        )
-    )
-    np.testing.assert_array_equal(dyn, base)
+def test_prep_layouts():
+    """Wrapper shapes and padding: segments position-major with pad code 4,
+    Peq base-major padded with empty patterns, per-tile length bounds."""
+    codes = np.array([[0, 1, 2], [3, 3, 4]], np.uint8)
+    seg_T = prep_segs_T(codes, ls=4)
+    assert seg_T.shape == (4, DEF_BR) and seg_T.dtype == np.int8
+    np.testing.assert_array_equal(seg_T[:3, :2], codes.T)
+    assert (seg_T[3] == 4).all() and (seg_T[:, 2:] == 4).all()
+    peq = np.arange(15, dtype=np.int32).reshape(5, 3)
+    rows = prep_peq_rows(peq)
+    assert rows.shape == (8, DEF_BP)
+    np.testing.assert_array_equal(rows[:5, :3], peq)
+    assert not rows[:, 3:].any() and not rows[5:].any()
+    ml = tile_maxlens(np.array([3] * DEF_BR + [9, 2]), 3 * DEF_BR)
+    np.testing.assert_array_equal(ml, [3, 9, 0])
+
+
+def _oracle_match(segs, barcodes, bl, mr):
+    """(rid, dist, sorted tie pattern ids) per matched segment, from the C++
+    dense-match oracle (tools/refbench.cpp) — independent Myers code."""
+    sys.path.insert(0, str(pathlib.Path(__file__).parent.parent / "tools"))
+    import native_oracles
+
+    pats = []
+    for b in barcodes:
+        pats.append(rev_compl(b))
+        pats.append(b)
+    pc, _ = encode_seqs(pats, pad_to=bl, table=LENIENT_TABLE)
+    ls = max(max(len(s) for s in segs), 1)
+    sc, lens = encode_seqs(segs, pad_to=ls, table=LENIENT_TABLE)
+    out = native_oracles.match_full(sc, lens, pc, len(pats))
+    rows = []
+    for r in range(len(segs)):
+        if out[0, r] <= mr:
+            rows.append((r, int(out[0, r]), out[2 : 2 + out[1, r], r].tolist()))
+    return rows
+
+
+@pytest.mark.parametrize("mr", [0, 1, 2, 3])
+@pytest.mark.parametrize("bl", [8, 16, 24, 31])
+def test_kernel_path_vs_oracle(monkeypatch, bl, mr):
+    """match_segments on the kernel path (interpret mode) == the C++ oracle
+    == the plain jnp path: read and pattern counts off the tile multiples,
+    ragged lengths under the per-tile bound, N bytes, > TIES_K ties."""
+    import sctagger.models.matcher as matcher
+
+    monkeypatch.setattr(matcher, "PASS1_CHUNK", 1024)
+    monkeypatch.setenv("SCTAG_EXACT_PREFILTER", "0")  # all reads on device
+    rng = np.random.default_rng(100 * bl + mr)
+    base = [random_dna(rng, bl) for _ in range(9)]
+    barcodes = base + [base[0]] * 9  # 36 patterns; base[0] ties 10 ways
+    segs = []
+    for r in range(150):
+        L = int(rng.integers(0, 2 * bl + 9))
+        s = random_dna(rng, L)
+        roll = rng.random()
+        if roll < 0.3:
+            s = s[: L // 2] + mutate(rng, base[0], int(rng.integers(0, mr + 1)))
+        elif roll < 0.7:
+            b = base[int(rng.integers(len(base)))]
+            s = s[: L // 3] + mutate(rng, b, int(rng.integers(0, mr + 2))) + s[L // 3 :]
+        if rng.random() < 0.1 and s:
+            p = int(rng.integers(len(s)))
+            s = s[:p] + "N" + s[p + 1 :]
+        segs.append(s)
+
+    def run(fk):
+        res = matcher.match_segments(segs, barcodes, max_error=mr,
+                                     force_kernel=fk)
+        return [
+            (int(res.rids[i]), int(res.dists[i]), res.ties_of(i).tolist())
+            for i in range(res.rids.size)
+        ]
+
+    got = run(True)
+    assert got == _oracle_match(segs, barcodes, bl, mr)
+    assert got == run(False)
+    assert any(len(t) > TIES_K for _, _, t in got)

@@ -6,7 +6,7 @@ import pathlib
 import numpy as np
 import pytest
 
-from sctagger_tpu.cli import main as cli_main
+from sctagger.cli import main as cli_main
 
 from oracle import mutate, random_dna
 from refharness import run_reference
@@ -36,7 +36,7 @@ def _make_inputs(tmp_path: pathlib.Path, rng, n_barcodes=60, n_reads=120, bl=16)
         if kind < 0.75:  # plant a (possibly revcomp, possibly mutated) barcode
             bc = barcodes[int(rng.integers(n_barcodes))]
             if rng.random() < 0.5:
-                from sctagger_tpu.core import rev_compl
+                from sctagger.core import rev_compl
 
                 bc = rev_compl(bc)
             bc = mutate(rng, bc, int(rng.integers(0, 4)))

@@ -1,6 +1,6 @@
 """Elastic recovery: a host drops mid-stage and is relaunched; the
 surviving host keeps waiting at the merge barrier and the final output is
-byte-identical to the single-host run (VERDICT r4 #8, the host-drop twin of
+byte-identical to the single-host run (the host-drop twin of
 the dryrun's device-drop checkpoint case). Failure detection itself is the
 reference's model (Snakemake reruns the failed rule; here the operator
 relaunches the failed host) — what the framework guarantees is that
@@ -46,7 +46,7 @@ def test_match_trie_host_drop_and_relaunch(tmp_path):
 
     single = tmp_path / "single.tsv"
     proc = subprocess.run(
-        [sys.executable, "-m", "sctagger_tpu", "match_trie", "-lr", str(lr),
+        [sys.executable, "-m", "sctagger", "match_trie", "-lr", str(lr),
          "-sr", str(sr), "-mr", "2", "-t", "1", "-o", str(single)],
         env=_cli_env(), capture_output=True, text=True, timeout=240,
     )
@@ -59,7 +59,7 @@ def test_match_trie_host_drop_and_relaunch(tmp_path):
     # host 0: healthy, will block at the part-merge barrier while host 1
     # is down (fs transport, SCTAG_SYNC_TIMEOUT bounds the wait)
     h0 = subprocess.Popen(
-        [sys.executable, "-m", "sctagger_tpu", *argv, "--host-id", "0"],
+        [sys.executable, "-m", "sctagger", *argv, "--host-id", "0"],
         env=_cli_env(), stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
         text=True,
     )
@@ -68,13 +68,13 @@ def test_match_trie_host_drop_and_relaunch(tmp_path):
     crash = textwrap.dedent(
         """
         import sys
-        import sctagger_tpu.stages.match_trie as mt
+        import sctagger.stages.match_trie as mt
 
         def boom(*a, **k):
             raise RuntimeError("injected host crash")
 
         mt.match_segments = boom
-        from sctagger_tpu.cli import main
+        from sctagger.cli import main
         main(sys.argv[1:])
         """
     )
@@ -88,7 +88,7 @@ def test_match_trie_host_drop_and_relaunch(tmp_path):
 
     # host 1, attempt 2: plain relaunch — recovery needs only this host
     h1b = subprocess.run(
-        [sys.executable, "-m", "sctagger_tpu", *argv, "--host-id", "1"],
+        [sys.executable, "-m", "sctagger", *argv, "--host-id", "1"],
         env=_cli_env(), capture_output=True, text=True, timeout=240,
     )
     assert h1b.returncode == 0, h1b.stderr[-2000:]

@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from sctagger_tpu.core import STRICT_TABLE, LENIENT_TABLE, encode_seqs, encode_str
-from sctagger_tpu.ops import (
+from sctagger.core import STRICT_TABLE, LENIENT_TABLE, encode_seqs, encode_str
+from sctagger.ops import (
     build_peq_multi,
     build_peq_single,
     hw_scores_scan,

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from sctagger_tpu.core import STRICT_TABLE, encode_seqs, encode_str
-from sctagger_tpu.ops.myers import (
+from sctagger.core import STRICT_TABLE, encode_seqs, encode_str
+from sctagger.ops.myers import (
     build_peq_multi_mw,
     build_peq_single_mw,
     hw_scores_scan_mw,

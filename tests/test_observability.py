@@ -4,7 +4,7 @@ import json
 
 import numpy as np
 
-from sctagger_tpu.cli import main as cli_main
+from sctagger.cli import main as cli_main
 
 from oracle import random_dna
 

@@ -1,6 +1,6 @@
 import numpy as np
 
-from sctagger_tpu.core import (
+from sctagger.core import (
     CODE_PAD,
     LENIENT_TABLE,
     STRICT_TABLE,

@@ -3,8 +3,7 @@
 These exercise the PRODUCTION mesh helpers the stage drivers dispatch through
 (models/matcher.py, models/adapter.py): the jnp data+model-sharded min pass,
 the Pallas fused kernel under shard_map (interpret mode), the sharded
-adapter-scan kernel, and the jnp hw-block — each against its single-device
-twin.
+adapter scan, and the jnp hw-block — each against its single-device twin.
 """
 
 import functools
@@ -13,9 +12,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sctagger_tpu.core import LENIENT_TABLE, encode_seqs
-from sctagger_tpu.ops import build_peq_multi, match_block_min
-from sctagger_tpu.parallel import (
+from sctagger.core import LENIENT_TABLE, encode_seqs
+from sctagger.ops import build_peq_multi, match_block_min
+from sctagger.parallel import (
     local_mesh,
     make_mesh,
     shard_match_full,
@@ -73,26 +72,25 @@ def test_shard_match_min_matches_single_device():
 
 def test_shard_match_full_matches_single_device():
     """Pallas fused kernel under shard_map (interpret mode on the CPU mesh)
-    == the single-device call: the production multi-chip TPU path."""
-    from sctagger_tpu.ops.match_pallas import (
-        match_full_tpu,
-        prep_peq_cols,
+    == the single-device call: the production multi-GPU path."""
+    from sctagger.ops.match_pallas import (
+        DEF_BR,
+        match_full,
+        prep_peq_rows,
         prep_segs_T,
+        tile_maxlens,
     )
 
-    br, bp = 128, 8
-    seg_codes, peq = _problem(n_segs=4 * br - 7)
-    seg_T = jnp.asarray(prep_segs_T(seg_codes, ls=48, br=br, r_pad=4 * br))
-    peq_pm = jnp.asarray(prep_peq_cols(peq, bp=bp))
-    single = np.asarray(
-        match_full_tpu(seg_T, peq_pm, 16, br=br, bp=bp, interpret=True)
-    )
+    rp = 8 * DEF_BR
+    seg_codes, peq = _problem(n_segs=rp - 7)
+    seg_T = jnp.asarray(prep_segs_T(seg_codes, ls=48, r_pad=rp))
+    peq_pm = jnp.asarray(prep_peq_rows(peq))
+    ml = jnp.asarray(tile_maxlens(np.full(rp - 7, 48), rp))
+    single = np.asarray(match_full(seg_T, peq_pm, ml, 16, interpret=True))
     for n in (2, 4):
         mesh = make_mesh(n, model_parallel=1)
         got = np.asarray(
-            shard_match_full(
-                mesh, seg_T, peq_pm, 16, br=br, bp=bp, interpret=True
-            )
+            shard_match_full(mesh, seg_T, peq_pm, ml, 16, interpret=True)
         )
         np.testing.assert_array_equal(got, single)
 
@@ -103,20 +101,23 @@ def test_shard_match_full_mp_matches_single_device():
 
     Patterns contain duplicates spread across shards so tie sets span shard
     boundaries and overflow TIES_K — the cases the merge proof covers."""
-    from sctagger_tpu.ops.match_pallas import (
+    from sctagger.ops.match_pallas import (
+        DEF_BP,
+        DEF_BR,
         TIES_K,
-        match_full_tpu,
-        prep_peq_cols,
+        match_full,
+        prep_peq_rows,
         prep_segs_T,
+        tile_maxlens,
     )
 
-    br, bp = 128, 8
+    rp = 8 * DEF_BR
     rng = np.random.default_rng(7)
     base = [random_dna(rng, 16) for _ in range(12)]
     # 64 patterns = 12 uniques cycled: every barcode recurs in >= 5 shard
     # positions, so at-min tie sets cross every model-axis split
     barcodes = [base[i % len(base)] for i in range(64)]
-    n_segs = 4 * br - 7
+    n_segs = rp - 7
     segs = [random_dna(rng, 24) for _ in range(n_segs)]
     for r in range(0, n_segs, 2):  # plant exact hits -> ties > TIES_K
         segs[r] = segs[r][:4] + barcodes[r % len(barcodes)] + segs[r][4:]
@@ -124,35 +125,32 @@ def test_shard_match_full_mp_matches_single_device():
     peq = build_peq_multi(
         encode_seqs(barcodes, pad_to=16, table=LENIENT_TABLE)[0]
     )
-    seg_T = jnp.asarray(prep_segs_T(seg_codes, ls=48, br=br, r_pad=4 * br))
-    peq_pm = jnp.asarray(prep_peq_cols(peq, bp=bp))
-    assert peq_pm.shape[0] == 64  # divides every model axis below
+    seg_T = jnp.asarray(prep_segs_T(seg_codes, ls=48, r_pad=rp))
+    # 8 pattern tiles (64 real + empty padding) divide every model axis
+    peq_pm = jnp.asarray(prep_peq_rows(peq, bp=8 * DEF_BP))
+    ml = jnp.asarray(tile_maxlens(np.full(n_segs, 48), rp))
 
-    single = np.asarray(
-        match_full_tpu(seg_T, peq_pm, 16, br=br, bp=bp, interpret=True)
-    )
+    single = np.asarray(match_full(seg_T, peq_pm, ml, 16, interpret=True))
     assert (single[1] > TIES_K).any()  # overflow rows are exercised
     for mp in (2, 4, 8):
         mesh = make_mesh(8, model_parallel=mp)
         got = np.asarray(
-            shard_match_full_mp(
-                mesh, seg_T, peq_pm, 16, br=br, bp=bp, interpret=True
-            )
+            shard_match_full_mp(mesh, seg_T, peq_pm, ml, 16, interpret=True)
         )
         np.testing.assert_array_equal(got, single)
 
 
 def test_shard_adapter_scan_matches_single_device():
-    from sctagger_tpu.core import STRICT_TABLE, encode_str, rev_compl
-    from sctagger_tpu.ops.adapter_pallas import (
-        BLOCK_READS,
+    from sctagger.core import STRICT_TABLE, encode_str, rev_compl
+    from sctagger.ops.adapter_scan import (
+        READ_TILE,
         adapter_scan_dispatch,
         unpack_scan_out,
     )
 
     adapter = "CTACACGACGCTCTTCCGATCT"
     rng = np.random.default_rng(5)
-    n = 2 * BLOCK_READS - 13
+    n = 2 * READ_TILE - 13
     reads, lens = [], []
     for _ in range(n):
         body = random_dna(rng, int(rng.integers(30, 90)))
@@ -172,15 +170,12 @@ def test_shard_adapter_scan_matches_single_device():
     peq2 = build_peq_multi(pat)
     lens = np.array(lens, np.int32)
     m = len(adapter)
-    b_pad = 2 * BLOCK_READS
-    single = np.asarray(
-        adapter_scan_dispatch(codes, lens, peq2, m, interpret=True, b_pad=b_pad)
-    )
+    b_pad = 2 * READ_TILE
+    single = np.asarray(adapter_scan_dispatch(codes, lens, peq2, m,
+                                              b_pad=b_pad))
     mesh = make_mesh(2, model_parallel=1)
     got = np.asarray(
-        adapter_scan_dispatch(
-            codes, lens, peq2, m, interpret=True, b_pad=b_pad, mesh=mesh
-        )
+        adapter_scan_dispatch(codes, lens, peq2, m, b_pad=b_pad, mesh=mesh)
     )
     f1, r1 = unpack_scan_out(single, n)
     f2, r2 = unpack_scan_out(got, n)
@@ -190,7 +185,7 @@ def test_shard_adapter_scan_matches_single_device():
 
 
 def test_allreduce_processes_single_process():
-    from sctagger_tpu.parallel import allreduce_processes
+    from sctagger.parallel import allreduce_processes
 
     a = np.arange(6, dtype=np.int32)
     np.testing.assert_array_equal(allreduce_processes(a, "sum", 0), a)

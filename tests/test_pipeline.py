@@ -7,8 +7,8 @@ import time
 import numpy as np
 import yaml
 
-from sctagger_tpu.cli import main as cli_main
-from sctagger_tpu.core import rev_compl
+from sctagger.cli import main as cli_main
+from sctagger.core import rev_compl
 
 from oracle import mutate, random_dna
 

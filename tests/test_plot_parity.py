@@ -1,5 +1,5 @@
 """Numeric parity of the three charts vs the REAL reference plotting code
-(VERDICT r4 #7): the encoded numbers — bar heights, cumulative series,
+: the encoded numbers — bar heights, cumulative series,
 coverage curves, the cutoff x-position, and the tick labels — must equal
 what scTagger.py's plot functions compute on the same inputs, including the
 reference's positional-label / row-0-moved-last quirks (scTagger.py:398-414).
@@ -87,7 +87,7 @@ class _Capture:
     ],
 )
 def test_stage1_distance_chart_parity(ref_mod, monkeypatch, tmp_path, dists):
-    from sctagger_tpu.plots import plot_extract_lr_bc
+    from sctagger.plots import plot_extract_lr_bc
 
     rnames = [f"r{i}" for i in range(len(dists))]
     alns = [(d, "+", [3], None) for d in dists]
@@ -113,8 +113,8 @@ def test_stage2_coverage_chart_parity(ref_mod, monkeypatch, tmp_path):
     """Coverage curves + the cutoff x-position, with distribution and
     last_idx computed by OUR stage code and the REFERENCE's own
     get_barcode_hist cross-checked on the same top list."""
-    from sctagger_tpu.core.cutoff import barcode_hist, elbow_cutoff
-    from sctagger_tpu.plots import plot_sr_bc_coverage
+    from sctagger.core.cutoff import barcode_hist, elbow_cutoff
+    from sctagger.plots import plot_sr_bc_coverage
 
     rng = np.random.default_rng(3)
     counts = np.sort(rng.integers(1, 2000, size=7000))[::-1]
@@ -151,7 +151,7 @@ def test_stage2_coverage_chart_parity(ref_mod, monkeypatch, tmp_path):
 def test_match_trie_chart_parity(ref_mod, monkeypatch, tmp_path):
     """The dead-code match_trie histogram: per-distance read counts
     (including the -1 'not found' bucket) equal the reference's groupby."""
-    from sctagger_tpu.plots import plot_match_trie
+    from sctagger.plots import plot_match_trie
 
     rng = np.random.default_rng(9)
     max_error = 2

@@ -1,12 +1,13 @@
-"""scan_adapters with force_kernel (pallas-interpret) must equal the mask path,
-including overflow fallback for reads with >SLOTS_K optimal ends."""
+"""scan_adapters (the packed device scan, on every backend) must equal the
+brute-force DP oracle under the reference's get_alns rules, including the
+mask fallback for reads with >SLOTS_K optimal ends or in-sequence junk."""
 
 import numpy as np
 
-from sctagger_tpu.models.adapter import scan_adapters
-from sctagger_tpu.core import rev_compl
+from sctagger.models.adapter import scan_adapters
+from sctagger.core import rev_compl
 
-from oracle import mutate, random_dna
+from oracle import edlib_hw_locations, mutate, random_dna
 
 ADAPTER = "CTACACGACGCTCTTCCGATCT"
 
@@ -27,7 +28,26 @@ def _flatten(res):
     return out
 
 
+def _oracle_alns(seqs, adapter=ADAPTER):
+    """The reference's get_alns per read: the strand with the smaller HW
+    distance wins ('+': optimal ends; '-': minimal optimal start of each
+    end as start - len - 1); equal distances are NA."""
+    out = []
+    for t in seqs:
+        d1, l1 = edlib_hw_locations(adapter, t)
+        d2, l2 = edlib_hw_locations(rev_compl(adapter), t)
+        if d1 == d2:
+            out.append((-1, -1, ()))
+        elif d1 < d2:
+            out.append((0, d1, tuple(e for _s, e in l1)))
+        else:
+            out.append((1, d2, tuple(s - len(t) - 1 for s, _e in l2)))
+    return out
+
+
 def test_kernel_path_equals_mask_path():
+    """The packed scan, with its overflow and junk fallbacks, == the DP
+    oracle under get_alns rules."""
     rng = np.random.default_rng(60)
     seqs = []
     for i in range(50):
@@ -55,16 +75,16 @@ def test_kernel_path_equals_mask_path():
     seqs.append(ADAPTER.replace("A", "N") + random_dna(rng, 80))
     seqs.append("N" * 40)  # all-junk read
 
-    ref = scan_adapters(seqs, ADAPTER)
-    got = scan_adapters(seqs, ADAPTER, force_kernel=True)
-    assert _flatten(got) == _flatten(ref)
+    ref = _oracle_alns(seqs)
+    got = scan_adapters(seqs, ADAPTER)
+    assert _flatten(got) == ref
 
-    # Same fixture through a SeqBuffer: the kernel path then uses the NATIVE
+    # Same fixture through a SeqBuffer: the scan then uses the NATIVE
     # encode+pack+junk pass (io/fastq.py encode_packed) instead of the numpy
-    # pack — must be byte-identical to both.
+    # pack — must equal the oracle too.
     import tempfile, pathlib
 
-    from sctagger_tpu.io.fastq import read_fastqs
+    from sctagger.io.fastq import read_fastqs
 
     with tempfile.TemporaryDirectory() as td:
         fq = pathlib.Path(td) / "reads.fastq"
@@ -76,8 +96,8 @@ def test_kernel_path_equals_mask_path():
         )
         _, sb = read_fastqs([str(fq)], gzipped=False)
     assert hasattr(sb, "encode_packed")
-    got_native = scan_adapters(sb, ADAPTER, force_kernel=True)
-    assert _flatten(got_native) == _flatten(ref)
+    got_native = scan_adapters(sb, ADAPTER)
+    assert _flatten(got_native) == ref
 
 
 def test_kernel_wide_output_layout(monkeypatch):
@@ -101,7 +121,7 @@ def test_kernel_wide_output_layout(monkeypatch):
                 + t[pos:]
             )
         seqs.append(t)
-    wide = scan_adapters(seqs, ADAPTER, force_kernel=True)
+    wide = scan_adapters(seqs, ADAPTER)
     monkeypatch.delenv("SCTAG_PACK_LIMIT")
-    packed = scan_adapters(seqs, ADAPTER, force_kernel=True)
+    packed = scan_adapters(seqs, ADAPTER)
     assert _flatten(wide) == _flatten(packed)

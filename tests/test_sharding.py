@@ -6,8 +6,8 @@ import gzip
 import numpy as np
 import pytest
 
-from sctagger_tpu.io.fastq import read_fastqs
-from sctagger_tpu.io.sharding import (
+from sctagger.io.fastq import read_fastqs
+from sctagger.io.sharding import (
     fastq_record_counts,
     read_fastq_shard,
     shard_ranges,

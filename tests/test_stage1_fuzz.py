@@ -17,8 +17,8 @@ import pathlib
 import numpy as np
 import pytest
 
-from sctagger_tpu.cli import main as cli_main
-from sctagger_tpu.core import rev_compl
+from sctagger.cli import main as cli_main
+from sctagger.core import rev_compl
 
 from oracle import mutate, random_dna
 from refharness import run_reference

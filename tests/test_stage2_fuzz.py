@@ -16,7 +16,7 @@ import os
 import numpy as np
 import pytest
 
-from sctagger_tpu.cli import main as cli_main
+from sctagger.cli import main as cli_main
 
 from bamgen import write_bam
 from oracle import random_dna

@@ -6,8 +6,8 @@ import gzip
 import numpy as np
 import pytest
 
-from sctagger_tpu.cli import main as cli_main
-from sctagger_tpu.io.bam import extract_cb_counts
+from sctagger.cli import main as cli_main
+from sctagger.io.bam import extract_cb_counts
 
 from bamgen import write_bam
 from oracle import random_dna

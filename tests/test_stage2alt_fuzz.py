@@ -23,8 +23,8 @@ import os
 import numpy as np
 import pytest
 
-from sctagger_tpu.cli import main as cli_main
-from sctagger_tpu.core import rev_compl
+from sctagger.cli import main as cli_main
+from sctagger.core import rev_compl
 
 from oracle import random_dna
 from refharness import run_reference
@@ -124,8 +124,8 @@ def test_numeric_rc_keys_match_explicit_strings():
     keep-last duplicate semantics must break ties the same way)."""
     import numpy as np
 
-    from sctagger_tpu.core.packing import rev_compl
-    from sctagger_tpu.ops.exact_lookup import build_key_table
+    from sctagger.core.packing import rev_compl
+    from sctagger.ops.exact_lookup import build_key_table
 
     from oracle import random_dna
 
@@ -149,12 +149,12 @@ def test_ragged_whitelist_sum_multiple_falls_back():
     keys."""
     import pytest
 
-    from sctagger_tpu.ops.exact_lookup import build_key_table
+    from sctagger.ops.exact_lookup import build_key_table
 
     with pytest.raises(ValueError):
         build_key_table(["ACGTACGT", "ACGTACGTACGTAC", "GT"])
     # and through the words_rc-given path too
-    from sctagger_tpu.core.packing import rev_compl
+    from sctagger.core.packing import rev_compl
 
     words = ["ACGTACGT", "ACGTACGTACGTAC", "GT"]
     with pytest.raises(ValueError):
@@ -169,8 +169,8 @@ def test_host_probe_matches_device_probe(monkeypatch):
 
     import numpy as np
 
-    from sctagger_tpu.core.packing import rev_compl
-    from sctagger_tpu.ops.exact_lookup import (
+    from sctagger.core.packing import rev_compl
+    from sctagger.ops.exact_lookup import (
         _probe_rows_host,
         build_key_table,
         probe_segments,
@@ -208,7 +208,7 @@ def test_host_probe_matches_device_probe(monkeypatch):
 
     # the opt-in bucketed kernel (recorded negative, SCTAG_BUCKET_PROBE=1)
     # must stay output-identical
-    import sctagger_tpu.ops.exact_lookup as xl
+    import sctagger.ops.exact_lookup as xl
 
     monkeypatch.setenv("SCTAG_BUCKET_PROBE", "1")
     xl._DEV_TABLE_CACHE.clear()  # re-derive the table entry with offsets

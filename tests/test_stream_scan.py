@@ -1,6 +1,6 @@
 """Streaming stage-1 ingest: ChainSeqBuffer semantics and
-scan_adapters_stream parity with the one-shot scan (kernel path in
-pallas-interpret mode, multi-batch, bucket extension, junk + overflow
+scan_adapters_stream parity with the one-shot scan (device scan path
+forced on the CPU, multi-batch, bucket extension, junk + overflow
 fallbacks), plus driver-level byte parity of SCTAG_STREAM on/off."""
 
 import gzip
@@ -9,10 +9,10 @@ import pathlib
 import numpy as np
 import pytest
 
-from sctagger_tpu.cli import main as cli_main
-from sctagger_tpu.core import rev_compl
-from sctagger_tpu.io.fastq import ChainSeqBuffer, SeqBuffer
-from sctagger_tpu.models.adapter import scan_adapters, scan_adapters_stream
+from sctagger.cli import main as cli_main
+from sctagger.core import rev_compl
+from sctagger.io.fastq import ChainSeqBuffer, SeqBuffer
+from sctagger.models.adapter import scan_adapters, scan_adapters_stream
 
 from oracle import mutate, random_dna
 
@@ -48,7 +48,7 @@ def test_chain_seqbuffer_surface():
 
 
 def test_chain_encode_routes_across_parts():
-    from sctagger_tpu.core.packing import CODE_PAD, STRICT_TABLE, encode_seqs
+    from sctagger.core.packing import CODE_PAD, STRICT_TABLE, encode_seqs
 
     parts = [["ACGTACGT", "TTTT"], ["GGCCGGCC", "ACGTN" + "ACG"], ["T" * 12]]
     flat = [s for p in parts for s in p]
@@ -118,12 +118,12 @@ def test_stream_d0_prefilter_parity(monkeypatch):
     batches = lambda: iter([(["x"] * len(reads), make_sb(reads))])
 
     monkeypatch.setenv("SCTAG_ADAPTER_D0", "1")
-    _, _, on = scan_adapters_stream(batches(), ADAPTER, force_kernel=True)
+    _, _, on = scan_adapters_stream(batches(), ADAPTER)
     monkeypatch.setenv("SCTAG_ADAPTER_D0", "0")
-    _, _, off = scan_adapters_stream(batches(), ADAPTER, force_kernel=True)
+    _, _, off = scan_adapters_stream(batches(), ADAPTER)
     assert _flatten(on) == _flatten(off)
     # the prefilter really resolved reads (count rides the PROF dict)
-    from sctagger_tpu.utils.misc import PROF
+    from sctagger.utils.misc import PROF
 
     assert PROF.get("scan.d0_resolved_reads", 0) > 0
 
@@ -146,18 +146,18 @@ def test_stream_d1_prefilter_parity(monkeypatch):
     reads.append(("".join(sub) + "AT") * 9)  # 9 dist-1 hits > host K=8
     batches = lambda: iter([(["x"] * len(reads), make_sb(reads))])
 
-    from sctagger_tpu.utils.misc import PROF
+    from sctagger.utils.misc import PROF
 
     monkeypatch.setenv("SCTAG_ADAPTER_D0", "1")
     monkeypatch.setenv("SCTAG_ADAPTER_D1", "1")
     monkeypatch.setenv("SCTAG_ADAPTER_D2", "0")  # pin the d1 scanner
     PROF.pop("scan.d1_resolved_reads", None)
-    _, _, d1 = scan_adapters_stream(batches(), ADAPTER, force_kernel=True)
+    _, _, d1 = scan_adapters_stream(batches(), ADAPTER)
     assert PROF.get("scan.d1_resolved_reads", 0) > 0
     monkeypatch.setenv("SCTAG_ADAPTER_D1", "0")
-    _, _, d0 = scan_adapters_stream(batches(), ADAPTER, force_kernel=True)
+    _, _, d0 = scan_adapters_stream(batches(), ADAPTER)
     monkeypatch.setenv("SCTAG_ADAPTER_D0", "0")
-    _, _, off = scan_adapters_stream(batches(), ADAPTER, force_kernel=True)
+    _, _, off = scan_adapters_stream(batches(), ADAPTER)
     assert _flatten(d1) == _flatten(off)
     assert _flatten(d0) == _flatten(off)
 
@@ -167,7 +167,7 @@ def test_d0_scanner_declines_non_acgt_adapter(monkeypatch):
     the d0 prefilter (the packed keys cannot represent it), not crash —
     stage 1 with such an adapter runs the kernel path where the junk char
     simply never matches."""
-    from sctagger_tpu.models.adapter import make_d0_scanner
+    from sctagger.models.adapter import make_d0_scanner
 
     monkeypatch.setenv("SCTAG_ADAPTER_D0", "1")
     assert make_d0_scanner("CTACACGACGCTNTTCCGATCT") is None
@@ -178,7 +178,7 @@ def test_d0_scanner_declines_non_acgt_adapter(monkeypatch):
     reads = [random_dna(rng, 60) for _ in range(50)]
     _, _, res = scan_adapters_stream(
         iter([(["x"] * len(reads), make_sb(reads))]),
-        "CTACACGACGCTNTTCCGATCT", force_kernel=True,
+        "CTACACGACGCTNTTCCGATCT",
     )
     assert res.dists.shape[0] == len(reads)
 
@@ -193,14 +193,14 @@ def test_stream_kernel_equals_oneshot():
     b3 = _gen_reads(rng, 25) + ["", "N" * 40]
     all_reads = b1 + b2 + b3
 
-    ref = scan_adapters(all_reads, ADAPTER, force_kernel=True)
+    ref = scan_adapters(all_reads, ADAPTER)
     batches = [
         ([f"r{i}" for i in range(len(b1))], make_sb(b1)),
         ([f"s{i}" for i in range(len(b2))], make_sb(b2)),
         ([f"t{i}" for i in range(len(b3))], make_sb(b3)),
     ]
     names, chain, got = scan_adapters_stream(
-        iter(batches), ADAPTER, force_kernel=True
+        iter(batches), ADAPTER
     )
     assert len(names) == len(all_reads)
     assert list(chain) == all_reads
@@ -208,7 +208,7 @@ def test_stream_kernel_equals_oneshot():
 
 
 def test_stream_empty_input():
-    names, chain, got = scan_adapters_stream(iter([]), ADAPTER, force_kernel=True)
+    names, chain, got = scan_adapters_stream(iter([]), ADAPTER)
     assert names == [] and len(chain) == 0
     assert got.strands.size == 0 and got.loc_counts.size == 0
 

@@ -4,7 +4,7 @@ from collections import Counter
 
 import numpy as np
 
-from sctagger_tpu.ops.topk_count import count_and_rank
+from sctagger.ops.topk_count import count_and_rank
 
 
 def _python_ref(vals):
@@ -60,7 +60,7 @@ def test_count_and_rank_max_key():
 def test_count_and_rank_host_twin():
     """count_and_rank_host (the production path) orders identically to the
     device version across random sizes, masks, and tie patterns."""
-    from sctagger_tpu.ops.topk_count import count_and_rank_host
+    from sctagger.ops.topk_count import count_and_rank_host
 
     rng = np.random.default_rng(7)
     for trial in range(20):

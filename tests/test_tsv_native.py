@@ -5,8 +5,8 @@ import gzip
 import numpy as np
 import pytest
 
-from sctagger_tpu.io.fastq import SeqBuffer
-from sctagger_tpu.io.tsv import read_lr_segments_tsv, read_lr_segments_tsv_py
+from sctagger.io.fastq import SeqBuffer
+from sctagger.io.tsv import read_lr_segments_tsv, read_lr_segments_tsv_py
 
 from oracle import random_dna
 
@@ -79,8 +79,8 @@ def test_native_lr_writer_matches_python_rows(tmp_path):
     and a multi-part ChainSeqBuffer arena."""
     import gzip
 
-    from sctagger_tpu.io.fastq import ChainSeqBuffer, SeqBuffer
-    from sctagger_tpu.io.tsv import write_lr_tsv_gz_native
+    from sctagger.io.fastq import ChainSeqBuffer, SeqBuffer
+    from sctagger.io.tsv import write_lr_tsv_gz_native
 
     def make_sb(seqs):
         buf = np.frombuffer(
@@ -133,10 +133,10 @@ def test_native_match_writer_matches_render_rows(tmp_path):
     pattern printing, and both gz and plain outputs."""
     import gzip
 
-    from sctagger_tpu.io.fastq import SeqBuffer
-    from sctagger_tpu.io.tsv import write_match_tsv_native
-    from sctagger_tpu.models.matcher import MatchResult
-    from sctagger_tpu.stages.match_trie import _render_rows
+    from sctagger.io.fastq import SeqBuffer
+    from sctagger.io.tsv import write_match_tsv_native
+    from sctagger.models.matcher import MatchResult
+    from sctagger.stages.match_trie import _render_rows
 
     rng = np.random.default_rng(8)
     barcodes = [

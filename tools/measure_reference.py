@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Measure the reference's per-stage throughput ON THIS HOST (VERDICT r1 #3).
+"""Measure the reference's per-stage throughput ON THIS HOST.
 
 The reference repo publishes no benchmark numbers (BASELINE.md), so bench.py
 compares against locally measured reference rates. This tool runs the ACTUAL

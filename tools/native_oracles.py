@@ -24,7 +24,7 @@ def ensure_built() -> pathlib.Path:
         return _LIB
     subprocess.run(
         ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-         str(_SRC), "-o", str(_LIB)],
+         "-pthread", str(_SRC), "-o", str(_LIB)],
         check=True, capture_output=True, text=True,
     )
     return _LIB
@@ -39,6 +39,12 @@ def load() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_int64),
     ]
     lib.sctag_ref_free.argtypes = [ctypes.c_void_p]
+    lib.sctag_ref_match_full.restype = ctypes.c_int
+    lib.sctag_ref_match_full.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int,
+    ]
     lib.sctag_ac_create.restype = ctypes.c_void_p
     lib.sctag_ac_destroy.argtypes = [ctypes.c_void_p]
     lib.sctag_ac_add.restype = ctypes.c_int
@@ -72,6 +78,29 @@ def hw_locations(query: str, target: str, lib=None):
     if nl.value:
         lib.sctag_ref_free(locs)
     return dist.value, out
+
+
+def match_full(seg_codes, lens, pat_codes, k: int, nthreads: int = 0,
+               lib=None):
+    """Stage-3 oracle: (k+2, R) int32 [min, count at min, first k pattern
+    ids] for (R, ls) uint8 segment codes against (P, m) pattern codes."""
+    import os
+
+    import numpy as np
+
+    lib = lib or load()
+    segs = np.ascontiguousarray(seg_codes, np.uint8)
+    pats = np.ascontiguousarray(pat_codes, np.uint8)
+    ln = np.ascontiguousarray(lens, np.int32)
+    R, ls = segs.shape
+    P, m = pats.shape
+    out = np.zeros((k + 2, R), np.int32)
+    rc = lib.sctag_ref_match_full(
+        segs.ctypes.data, ln.ctypes.data, R, ls, pats.ctypes.data, P, m, k,
+        out.ctypes.data, nthreads or (os.cpu_count() or 1),
+    )
+    assert rc == 0, rc
+    return out
 
 
 class Automaton:
@@ -171,6 +200,29 @@ _lib.sctag_ac_iter.argtypes = [
     ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64,
     ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
     ctypes.c_int64]
+
+
+def match_full(seg_codes, lens, pat_codes, k: int, nthreads: int = 0,
+               lib=None):
+    """Stage-3 oracle: (k+2, R) int32 [min, count at min, first k pattern
+    ids] for (R, ls) uint8 segment codes against (P, m) pattern codes."""
+    import os
+
+    import numpy as np
+
+    lib = lib or load()
+    segs = np.ascontiguousarray(seg_codes, np.uint8)
+    pats = np.ascontiguousarray(pat_codes, np.uint8)
+    ln = np.ascontiguousarray(lens, np.int32)
+    R, ls = segs.shape
+    P, m = pats.shape
+    out = np.zeros((k + 2, R), np.int32)
+    rc = lib.sctag_ref_match_full(
+        segs.ctypes.data, ln.ctypes.data, R, ls, pats.ctypes.data, P, m, k,
+        out.ctypes.data, nthreads or (os.cpu_count() or 1),
+    )
+    assert rc == 0, rc
+    return out
 
 
 class Automaton:

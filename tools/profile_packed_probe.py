@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Decompose the packed device exact-lookup (VERDICT r4 #5 follow-up):
+"""Decompose the packed device exact-lookup:
 kernel-only (tiny fetch) vs +download vs +upload vs full driver, at the
 alt_device_3m bench shape (6M-key table, 64K x 28-char rows per chunk).
 
@@ -13,13 +13,13 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from sctagger_tpu.runtime import configure_jax
+from sctagger.runtime import configure_jax
 
 configure_jax()
 import jax
 import jax.numpy as jnp
 
-from sctagger_tpu.ops.exact_lookup import _probe_rows_packed
+from sctagger.ops.exact_lookup import _probe_rows_packed
 
 rng = np.random.default_rng(0)
 N_KEYS = 6_000_000
